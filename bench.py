@@ -7,8 +7,9 @@ Prints ONE JSON line:
 The measured quantity is the per-frame hot path of the reference
 (SURVEY.md §3.2: detect + describe both stereo images, stereo match,
 temporal match, triangulate, RANSAC-PnP pose) at KITTI seq-00 resolution
-(376 x 1241), steady-state, on whatever device JAX provides (the real TPU
-chip under the driver).
+(376 x 1241), steady-state, on the GPU. The run fails when JAX's first
+device is not a GPU whose peaks are in ``PEAKS``; every printed result
+names the platform, device kind and device count.
 
 ``vs_baseline`` divides by the CPU reference cost, measured live with the
 same C++ kernels the reference binds: cv2 SIFT detect/compute, three
@@ -37,67 +38,49 @@ H, W = 376, 1241
 BENCH_FRAMES = 96  # 11 timed chunks: 5 was too few to amortize dispatch jitter
 CHUNK = 8
 BASELINE_FRAMES = 16  # timed frames (frame 0 is processed as warmup)
-BA_WINDOWS = 128  # dispatch batch: measured optimum (64: 131 w/s, 128:
-#                   161, 256: 155 — r4 batch sweep); production runs 653
-#                   windows so a 128-window dispatch is what it executes
+BA_WINDOWS = 128  # windows per BA dispatch; production batches all of a
+#                   sequence's windows (653 at reference scale)
 
-# Peak MXU throughput by device kind (bf16 FLOP/s, the currency of the
-# scaling-book MFU convention). MFU here = XLA-counted FLOPs / wall-clock
-# / this peak — an *accounting* number: most frontend math is f32
-# conv/elementwise, so its ceiling on the MXU is lower than bf16 peak.
-PEAK_FLOPS = {
-    "TPU v5 lite": 197e12,  # v5e
-    "TPU v5": 459e12,       # v5p
-    "TPU v4": 275e12,
+# Published peaks by ``jax.devices()[0].device_kind`` (NVIDIA H100 SXM5
+# data sheet: dense rates without sparsity, at the full 700 W power limit).
+# MFU here = XLA-counted FLOPs / wall-clock / the bf16 peak — an
+# *accounting* number: most frontend math is f32 elementwise work, so its
+# real ceiling is far lower. A device missing from the table is an error.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_flops": 989e12,
+        "tf32_flops": 495e12,
+        "f32_flops": 67e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
 }
 
 
-def _device_peak() -> float:
+def device_info() -> dict:
+    """Platform, device kind and device count of JAX's default backend."""
     import jax
 
-    kind = jax.devices()[0].device_kind
-    for k, v in PEAK_FLOPS.items():
-        if kind.startswith(k):
-            return v
-    return 197e12  # unknown chip: report against v5e peak
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
+
+
+def device_peaks(kind: str | None = None) -> dict:
+    """The ``PEAKS`` entry of ``kind`` (default: JAX's first device)."""
+    if kind is None:
+        kind = device_info()["kind"]
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
 
 
 def _xla_flops(compiled) -> float:
-    """FLOPs of a compiled executable from XLA's own cost analysis
-    (0.0 when the backend doesn't expose it)."""
-    try:
-        ca = compiled.cost_analysis()
-        if isinstance(ca, (list, tuple)):
-            ca = ca[0]
-        return float(ca.get("flops", 0.0))
-    except Exception:
-        return 0.0
-
-
-def _custom_call_flops_counted() -> bool:
-    """Does cost_analysis include Pallas pl.CostEstimate FLOPs?
-
-    The matcher kernel declares its 2*Ka*Kb*D matmul FLOPs via
-    CostEstimate (pallas_kernels.py); if the backend surfaces those in
-    cost_analysis, adding them analytically again would double-count the
-    dominant MXU term of mfu_frontend. Probe a tiny compile and look."""
-    import jax
-    import jax.numpy as jnp
-
-    from slam_tpu.ops import pallas_kernels as pk
-
-    # tile-aligned shapes: the kernel asserts Ka % TILE_A == 0, so a
-    # (128, 128) probe raised at trace time and the probe always said False
-    ka, kb = pk.TILE_A, pk.TILE_B
-    a = jnp.zeros((ka, 128), jnp.float32)
-    b = jnp.zeros((kb, 128), jnp.float32)
-    va = jnp.ones((ka,), bool)
-    vb = jnp.ones((kb,), bool)
-    try:
-        c = jax.jit(pk.mutual_nearest).lower(a, b, va, vb).compile()
-    except Exception:
-        return False
-    return _xla_flops(c) >= 2 * ka * kb * 128  # the declared estimate
+    """FLOPs of a compiled executable from XLA's own cost analysis."""
+    ca = compiled.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0]
+    return float(ca.get("flops", 0.0))
 
 
 def make_images(num_frames: int) -> tuple[np.ndarray, np.ndarray]:
@@ -116,7 +99,7 @@ def make_images(num_frames: int) -> tuple[np.ndarray, np.ndarray]:
     return to_u8(L), to_u8(R)
 
 
-def bench_tpu(L: np.ndarray, R: np.ndarray) -> tuple[float, float]:
+def bench_frontend(L: np.ndarray, R: np.ndarray) -> tuple[float, float]:
     """Steady-state frames/sec of the chunked frontend, and its MFU
     (XLA-counted FLOPs per chunk / wall-clock / device bf16 peak)."""
     import jax
@@ -145,19 +128,6 @@ def bench_tpu(L: np.ndarray, R: np.ndarray) -> tuple[float, float]:
             Lj[:CHUNK], Rj[:CHUNK], carry, calib, key, cfg
         ).compile()
     )
-    if jax.default_backend() == "tpu":
-        # XLA's cost analysis counts Pallas custom calls as 0 FLOPs, which
-        # misses the two dominant MXU terms — add them analytically:
-        #   matcher distance matrices: 2 matmul passes/frame (stereo +
-        #   temporal), 2*K^2*D FLOPs each (pallas_kernels mutual_nearest)
-        #   fused Harris + orientation maps: ~260 FLOPs/px over 2F images
-        #   (blur, gradients, window sums, response, 5x5 NMS, atan poly,
-        #   8 bin projections + cell pooling)
-        K_kp = cfg.features.max_kp
-        D = 128
-        if not _custom_call_flops_counted():
-            flops_per_chunk += CHUNK * 2 * (2 * K_kp * K_kp * D)
-        flops_per_chunk += 2 * CHUNK * H * W * 260.0
 
     n_chunks = (L.shape[0] - CHUNK) // CHUNK
     t0 = time.perf_counter()
@@ -170,7 +140,7 @@ def bench_tpu(L: np.ndarray, R: np.ndarray) -> tuple[float, float]:
         last = o
     jax.block_until_ready(last["T_rel"])
     dt = time.perf_counter() - t0
-    mfu = flops_per_chunk * n_chunks / dt / _device_peak()
+    mfu = flops_per_chunk * n_chunks / dt / device_peaks()["bf16_flops"]
     return n_chunks * CHUNK / dt, mfu
 
 
@@ -309,44 +279,15 @@ def bench_cpu_reference(L: np.ndarray, R: np.ndarray) -> float:
 
 def bench_ba_windows() -> tuple[float, float]:
     """Batched-BA windows/sec at production shapes (P=24, L=512, M=4096),
-    and its MFU (XLA-counted FLOPs / wall-clock / device bf16 peak — the
-    one-hot Schur engine is pure XLA, so the count needs no analytic
-    supplement)."""
+    and its MFU (XLA-counted FLOPs / wall-clock / device bf16 peak)."""
     import jax
     import jax.numpy as jnp
 
-    from slam_tpu.ops import ba, se3, stereo
+    from slam_tpu.ops import ba
+    from slam_tpu.utils.synthetic import KITTI_CALIB, ba_windows
 
-    P, L, M = 24, 512, 4096
-    calib = jnp.array([718.856, 718.856, 607.1928, 185.2157, 0.5372],
-                      jnp.float32)
-
-    def one_window(key):
-        k1, k2, k3, k4, k5 = jax.random.split(key, 5)
-        t = jnp.arange(P, dtype=jnp.float32)
-        xi = jnp.stack([jnp.zeros_like(t), 0.01 * t, jnp.zeros_like(t),
-                        0.05 * t, jnp.zeros_like(t), -0.8 * t], axis=-1)
-        poses_gt = jax.vmap(se3.se3_exp)(xi)
-        u = jax.random.uniform(k1, (L, 3))
-        points_gt = jnp.stack([(u[:, 0] - 0.5) * 24.0, (u[:, 1] - 0.5) * 6.0,
-                               8.0 + u[:, 2] * 40.0], axis=-1)
-        ci = jax.random.randint(k2, (M,), 0, P)
-        li = jnp.tile(jnp.arange(L), M // L)[:M]
-        T = poses_gt[ci]
-        Xc = jnp.einsum("mij,mj->mi", T[:, :3, :3], points_gt[li]) + T[:, :3, 3]
-        meas = stereo.project(calib, Xc) + 0.3 * jax.random.normal(k3, (M, 3))
-        # observations behind (or grazing) the camera never exist in real
-        # data — zero their weights so the LM trajectory is realistic
-        # (visible obs only; the padded-lane machinery is what's timed)
-        w = (Xc[:, 2] > 0.5).astype(jnp.float32)
-        dpose = 0.01 * jax.random.normal(k4, (P, 6))
-        dpose = dpose.at[0].set(0.0)
-        poses0 = jax.vmap(se3.retract)(poses_gt, dpose)
-        points0 = points_gt + 0.15 * jax.random.normal(k5, (L, 3))
-        return poses0, points0, ci, li, meas, w
-
-    keys = jax.random.split(jax.random.PRNGKey(3), BA_WINDOWS)
-    batch = jax.vmap(one_window)(keys)
+    calib = KITTI_CALIB
+    batch = ba_windows(jax.random.PRNGKey(3), BA_WINDOWS)
 
     solver = jax.jit(jax.vmap(
         lambda p0, x0, ci, li, ms, ww: ba.optimize_bundle_pruned(
@@ -360,7 +301,7 @@ def bench_ba_windows() -> tuple[float, float]:
     out = solver(*batch)
     jax.block_until_ready(out[0])
     dt = time.perf_counter() - t0
-    return BA_WINDOWS / dt, flops / dt / _device_peak()
+    return BA_WINDOWS / dt, flops / dt / device_peaks()["bf16_flops"]
 
 
 def bench_e2e(L: np.ndarray, R: np.ndarray) -> float:
@@ -368,8 +309,7 @@ def bench_e2e(L: np.ndarray, R: np.ndarray) -> float:
     store + BA + pose graph + LOOP CLOSURE (gate + verification + LC pose
     graph), including all host stages — every per-sequence compute stage
     of the reference driver (project.py:27-94) except the matplotlib
-    analysis/plot emission, which is measured separately at reference
-    scale (BENCH.md). Measured warm (second run, XLA compile cache
+    analysis/plot emission. Measured warm (second run, XLA compile cache
     populated): at 96 frames a cold run is >90% compilation, which
     amortizes to nothing over a real sequence."""
     from slam_tpu.pipeline import run_pipeline
@@ -386,13 +326,10 @@ def bench_e2e(L: np.ndarray, R: np.ndarray) -> float:
 def _fail(stage: str, exc: BaseException) -> "typing.NoReturn":
     """Emit ONE diagnostic JSON line naming the failing bench stage.
 
-    A Mosaic lowering / XLA compile failure anywhere in the bench used to
-    surface as a bare rc=1 with the error buried in a traceback the driver
-    does not record (VERDICT r3 weak #7: round 2's on-chip atan2 lowering
-    crash was invisible in BENCH_r02.json). The ``error`` object makes the
-    failure class readable straight from BENCH_r*.json. The metric name is
+    A compile failure anywhere in the bench would otherwise surface as a
+    bare rc=1 with the error buried in a traceback. The metric name is
     neutral ("bench_failed") so tooling keyed on the frontend metric never
-    attributes a BA/e2e/smoke failure to the frontend."""
+    attributes a BA/e2e failure to the frontend."""
     import traceback
 
     print(json.dumps({
@@ -405,56 +342,34 @@ def _fail(stage: str, exc: BaseException) -> "typing.NoReturn":
             "type": type(exc).__name__,
             "msg": str(exc)[:2000],
             "lowering_failure": type(exc).__name__ in (
-                "MosaicError", "XlaRuntimeError", "InternalError",
+                "XlaRuntimeError", "InternalError",
                 "UnimplementedError", "NotImplementedError",
-            ) or "Mosaic" in str(exc) or "lowering" in str(exc).lower(),
+            ) or "lowering" in str(exc).lower(),
         },
+        "device": device_info(),
     }))
     traceback.print_exc()
     raise SystemExit(1)
-
-
-def _smoke_preflight() -> None:
-    """Structural on-chip lowering gate (VERDICT r4 #8).
-
-    Runs scripts/tpu_smoke.py — compile-only Mosaic lowering of every
-    Pallas kernel plus the production frontend entry — as a subprocess
-    BEFORE any timed stage. A kernel-lowering regression therefore cannot
-    produce a green-looking BENCH artifact: it surfaces as
-    ``error.stage == "smoke"`` in the one JSON line. rc=2 (no TPU backend)
-    is a skip, not a failure; warm compile-cache runs finish in ~1 min."""
-    import pathlib
-    import subprocess
-    import sys
-
-    script = pathlib.Path(__file__).resolve().parent / "scripts" / "tpu_smoke.py"
-    if not script.exists():
-        return
-    proc = subprocess.run(
-        [sys.executable, str(script)], capture_output=True, text=True,
-        timeout=1800,
-    )
-    if proc.returncode == 1:
-        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-25:])
-        _fail("smoke", RuntimeError(f"tpu_smoke lowering gate failed:\n{tail}"))
-    # rc 0 = all kernels lower; rc 2 = no TPU backend (CPU dev run): proceed
 
 
 def main() -> None:
     from slam_tpu.config import SlamConfig, enable_compile_cache
 
     # persistent XLA cache: steady-state numbers are unaffected (they are
-    # measured after warmup), but the driver's bench invocation stops
-    # paying ~2 min of compiles for programs it compiled last round
+    # measured after warmup); a warm cache only shortens set-up
     enable_compile_cache(SlamConfig().runtime)
-    _smoke_preflight()
+    info = device_info()
+    if info["platform"] != "gpu":
+        raise SystemExit(f"bench.py measures the GPU; JAX's first device "
+                         f"is {info}")
+    device_peaks(info["kind"])  # unknown card: fail before any work
     L, R = make_images(BENCH_FRAMES)
     try:
-        fps, mfu_fe = bench_tpu(L, R)
+        fps, mfu_fe = bench_frontend(L, R)
     except Exception as e:  # noqa: BLE001 — diagnostic funnel, re-raises
         _fail("frontend", e)
     # two independent baseline passes: the mean is the denominator, the
-    # spread documents its stability (VERDICT r2 weak #5)
+    # spread documents its stability
     try:
         ref_a = bench_cpu_reference(L, R)
         ref_b = bench_cpu_reference(L, R)
@@ -483,6 +398,7 @@ def main() -> None:
             "mfu_frontend": round(mfu_fe, 4),
             "mfu_ba": round(mfu_ba, 4),
         },
+        "device": info,
     }))
 
 

@@ -1,4 +1,4 @@
-"""Measure candidate BA-engine optimizations in isolation (VERDICT r4 #2).
+"""Measure candidate BA-engine optimizations in isolation.
 
 Variants, cumulative ablations over one LM iteration x ITERS (same
 anti-hoisting carry trick as profile_ba.py):
@@ -75,7 +75,7 @@ def jacobians_mm(T, X, w, Xc):
 
 
 def bf16mm(a, b):
-    """Matmul with bf16 inputs, f32 accumulation (1 MXU pass)."""
+    """Matmul with bf16 inputs, f32 accumulation (one pass)."""
     return jax.lax.dot(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
                        precision=jax.lax.Precision.DEFAULT,
                        preferred_element_type=jnp.float32)

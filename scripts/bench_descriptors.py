@@ -1,6 +1,6 @@
 """Descriptor-path benchmark: harris 1-octave vs harris 2-octave vs AKAZE.
 
-VERDICT r1 item 8 / NOTES_ROUND1 §2: a second descriptor octave helps
+A second descriptor octave helps
 loop-closure viewpoint changes but was never made the measured default.
 This driver runs the full pipeline on the SAME rendered loop scene for
 each detector configuration and reports:
@@ -38,8 +38,7 @@ def main() -> int:
     ap.add_argument("--texture", choices=["blobs", "fractal"],
                     default="blobs",
                     help="'fractal' = natural-image-statistics scene "
-                         "(de-confounds the detector ranking, VERDICT r4 "
-                         "missing #1)")
+                         "(de-confounds the detector ranking)")
     args = ap.parse_args()
 
     if args.cpu:
@@ -83,7 +82,7 @@ def main() -> int:
         "sift": SlamConfig(
             features=FeatureConfig(detector="sift", num_levels=3)),
         # NORM_HAMMING mode (reference matching.py:21): binarized
-        # descriptors matched by exact MXU popcount (ops/binary.py)
+        # descriptors matched by exact matmul popcount (ops/binary.py)
         "hamming": SlamConfig(matching=MatchConfig(norm="hamming")),
         # ORB family (ops/orb.py): FAST-9 + steered BRIEF bits, matched
         # as NORM_HAMMING (its native metric)

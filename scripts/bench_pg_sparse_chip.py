@@ -1,15 +1,13 @@
-"""On-chip validation of the sparse selected-inverse pose-graph path.
+"""Sparse selected-inverse pose-graph path against the dense one.
 
-VERDICT r4 next #4: ``ops/pg_sparse.py`` exists to save the pose graph
-above SPARSE_NODE_THRESHOLD (=1024) keyframes, but production runs at 653
-and the sparse tests run on CPU — its scan-heavy block-Cholesky /
-Takahashi / Woodbury structure had never been compiled or timed on the
-real TPU. This script builds a 2560-keyframe graph with
+``ops/pg_sparse.py`` exists to save the pose graph above
+SPARSE_NODE_THRESHOLD (=1024) keyframes, but production runs at 653 and
+the sparse tests run on CPU. This script builds a 2560-keyframe graph with
 reference-scale-stiff whitening (tests/test_pose_graph_scale.py
 generator), runs optimize / gate sweep / marginal logdets through the
 PoseGraph routing (which picks the sparse path at this N), and times the
 dense path on the same graph for comparison (its (6N)^2 covariance is
-0.94 GB at this N — it still fits the chip, which is what makes the
+0.94 GB at this N — it still fits the device, which is what makes the
 comparison measurable).
 
 Match: gtsam.Marginals scalability (reference pose_graph.py:7-24).
@@ -80,10 +78,9 @@ def main() -> int:
             c_ld, w_ld, (ld_loc, ld_rot) = timed(
                 lambda: pg.marginal_logdets())
         except Exception as e:  # noqa: BLE001 — infeasibility IS a result
-            # the dense (6N)^2 path at N=2560 fails to even COMPILE on
-            # chip (XLA LuDecompositionBlock exceeds scoped VMEM) — that
-            # infeasibility is the sparse path's reason to exist; record
-            # it instead of crashing the bench
+            # the dense (6N)^2 path may fail to compile or to fit at
+            # large N — that infeasibility is the sparse path's reason to
+            # exist; record it instead of crashing the bench
             msg = "\n".join(str(e).splitlines()[:3])
             report[path] = {"infeasible": True, "error": msg}
             print(f"[pg-chip] {path}: INFEASIBLE: {msg}", flush=True)

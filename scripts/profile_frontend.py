@@ -4,7 +4,7 @@ Times each stage of models/frontend.process_chunk in isolation at the
 benchmark shapes (8-frame chunk, 376x1241, K=2048, 512 RANSAC
 hypotheses), steady-state on the default device. This is the optimization
 map for the headline frontend fps (bench.py): the stage with the largest
-share is the next Pallas/layout candidate.
+share is the next kernel/layout candidate.
 
 Usage:  python scripts/profile_frontend.py [--chunk 8] [--iters 20]
 """

@@ -1,13 +1,13 @@
-"""slam_tpu — TPU-native stereo visual SLAM framework.
+"""slam_tpu — batched stereo visual SLAM in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 stereo SLAM system (michaelpiro/67604-SLAM---video-navigation): stereo feature
 front-end, RANSAC-PnP odometry, windowed Levenberg-Marquardt bundle adjustment
 with Schur complement, pose-graph optimization, and loop closure — all batched
-and shardable over TPU device meshes.
+and shardable over device meshes.
 
-Layer map (TPU-first, not a port):
-  ops/       pure-JAX / Pallas compute kernels (SE3, stereo camera,
+Layer map (batched, not a port):
+  ops/       pure-JAX compute kernels (SE3, stereo camera,
              triangulation, EPnP, RANSAC, features, matching, LM solvers)
   models/    pipeline stages (frontend odometry, track store, bundle
              adjustment, pose graph, loop closure)

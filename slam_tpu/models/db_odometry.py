@@ -8,7 +8,7 @@ tracks), ``calculate_relative_transformation`` (:92-104),
 suite to rebuild the PnP trajectory from a deserialized DB
 (analysis.py:442-448).
 
-TPU re-design: correspondences between consecutive frames come from the
+Batched re-design: correspondences between consecutive frames come from the
 track-id arrays with one argsort-based join per frame (vectorized numpy),
 then ALL frame pairs are solved simultaneously by the batched Gauss-Newton
 pose refiner (the correspondences are already RANSAC-curated tracks, so no

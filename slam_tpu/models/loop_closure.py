@@ -7,7 +7,7 @@ Reference surface: final_project/backend/loop/loop_closure.py —
 mini-bundle relative pose+cov (:439-569), pose-graph update (:33-71) —
 plus the det-weighted Dijkstra covariance-path machinery in loop/graph.py.
 
-TPU re-design:
+Batched re-design:
   * The O(N^2) per-pair Dijkstra scan over the covariance graph collapses
     into ONE batched Mahalanobis sweep: the exact joint posterior
     covariance (one dense inverse of the pose-graph Hessian,

@@ -187,7 +187,7 @@ class PoseGraph:
         sqrt-information) carry an O(0.05) noise floor per entry, and from
         an already-optimal init the accept test reads that noise as
         improvement: nodes random-walked ~0.5 m off the optimum while the
-        reported cost stayed 'small' (VERDICT r4 weak #2, bundles ATE
+        reported cost stayed 'small' (bundles ATE
         0.564 -> pose graph 0.766 m; the f32 'optimum' re-evaluated in f64
         had cost 1619 vs 0.004 at init)."""
         if not self.is_loop.any() and self._chain_layout():

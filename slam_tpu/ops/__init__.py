@@ -1,1 +1,1 @@
-"""Pure-JAX / Pallas compute kernels for stereo SLAM."""
+"""Pure-JAX compute kernels for stereo SLAM."""

@@ -1,4 +1,4 @@
-"""AKAZE-style nonlinear scale-space detection (TPU-native).
+"""AKAZE-style nonlinear scale-space detection.
 
 The reference's headline detector is ``cv2.AKAZE_create`` (README.md
 feature list; final_project/algorithms/matching.py:19-24: threshold 8e-4,
@@ -6,7 +6,7 @@ feature list; final_project/algorithms/matching.py:19-24: threshold 8e-4,
 diffusion — edges are preserved while flat regions blur — and detects
 scale-normalized Hessian-determinant extrema in it.
 
-This module is that idea expressed as TPU-friendly dense image math:
+This module is that idea expressed as batched dense image math:
 
   * explicit fast-diffusion steps ``L += tau * div(g(|grad L|) grad L)``
     with the PM-g2 conductivity ``g = 1/(1 + |grad|^2 / k^2)`` — pure
@@ -150,67 +150,12 @@ def detect_and_describe_akaze_batch(
     octaves: int = 2,
     steps: int = 6,
     threshold: float = 8e-4,
-    use_pallas: bool | None = None,
 ):
-    """Batched nonlinear scale-space detect+describe over (F, H, W).
-
-    On TPU the whole octave — all diffusion steps, Hessian response, NMS —
-    comes from one fused Pallas VMEM pass per row tile
-    (pallas_kernels.akaze_octave_batch), and descriptor maps from the
-    fused orientation kernel; elsewhere this is exactly
-    ``vmap(detect_and_describe_akaze)``. The Pallas octave matches the
-    jnp diffusion/response to f32 roundoff (wrap halos); detection runs
-    behind border=12 on that path so descriptor samples stay clear of the
-    orientation maps' differing border band (see
-    detect_and_describe_multiscale_batch).
-    """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if not use_pallas:
-        return jax.vmap(
-            lambda im: detect_and_describe_akaze(
-                im, max_kp=max_kp, octaves=octaves, steps=steps,
-                threshold=threshold,
-            )
-        )(imgs)
-
-    from . import pallas_kernels as pk
-
-    F = imgs.shape[0]
-    budgets = _octave_budgets(max_kp, octaves)
-    k = jax.vmap(_contrast_k)(imgs)                    # (F,)
-    L = jax.vmap(lambda im: feat.gaussian_blur(im, 1.0, 2))(imgs)
-    outs = []
-    for o, kp_budget in enumerate(budgets):
-        sigma = 1.6 * (2.0 ** o)
-        L, resp, nms = pk.akaze_octave_batch(L, k, steps=steps, sigma=sigma)
-        maps = pk.orientation_cell_maps_batch(L, shifted=True)
-
-        def one(r, rn, l_img, sm, kp_budget=kp_budget, sigma=sigma):
-            det = feat.select_keypoints(
-                r, kp_budget, border=12,
-                min_response=threshold * (sigma ** 4) * 1e-3,
-                resp_nms=rn,
-            )
-            desc = feat.describe(l_img, det["xy"], det["valid"],
-                                 shifted_maps=sm)
-            return det, desc
-
-        det, desc = jax.vmap(one)(resp, nms, L, maps)
-        factor = float(1 << o)
-        outs.append({
-            "xy": det["xy"] * factor,
-            "desc": desc,
-            "valid": det["valid"],
-            "resp": det["resp"],
-            "scale": jnp.full((F, kp_budget), factor, jnp.float32),
-        })
-        if o + 1 < octaves:
-            L = jax.vmap(lambda l: feat.gaussian_blur(l, 1.0, 2)[::2, ::2])(L)
-
-    return {
-        key: jnp.concatenate([o[key] for o in outs], axis=1)
-        for key in ("xy", "desc", "valid", "resp", "scale")
-    }
-
-
+    """Batched nonlinear scale-space detect+describe over (F, H, W):
+    ``vmap(detect_and_describe_akaze)``."""
+    return jax.vmap(
+        lambda im: detect_and_describe_akaze(
+            im, max_kp=max_kp, octaves=octaves, steps=steps,
+            threshold=threshold,
+        )
+    )(imgs)

@@ -6,8 +6,7 @@ Replaces GTSAM's ``NonlinearFactorGraph`` + ``GenericStereoFactor3D`` +
 final_project/backend/GTSam/bundle.py:82-211, pose_graph.py:7-24). Where the
 reference optimizes ~430 keyframe windows one-by-one through a C++ LM, this
 solver is written to be ``vmap``-ed over the *whole batch of windows at
-once* and ``pjit``-sharded across devices — the headline TPU win of the
-backend.
+once* and ``pjit``-sharded across devices.
 
 Problem representation (static shapes; one "BA problem" = one window):
   poses    (P, 4, 4) extrinsics T_win2cam (window frame = first camera).
@@ -44,16 +43,15 @@ from .precision import full_precision
 # residuals and analytic Jacobians
 # ---------------------------------------------------------------------------
 
-# 3-wide contractions as explicit VPU mult-adds: see se3.mv3/se3.mm33 for
-# why (a 3-wide dot_general lowers to padded micro-matmuls on the MXU and
-# pays the f32-emulation passes; profiled as the largest LM-step cost).
+# 3-wide contractions as explicit elementwise mult-adds: see se3.mv3 /
+# se3.mm33 for why (a 3-wide dot_general becomes a padded micro-matmul).
 _mv3 = se3.mv3
 _mm33 = se3.mm33
 
 
 def _outer3(Ja, Jb):
     """(..., 3, a), (..., 3, b) -> (..., a, b): sum_i Ja[i]^T Jb[i] over
-    the 3 residual rows (einsum "mia,mib->mab"), as VPU mult-adds."""
+    the 3 residual rows (einsum "mia,mib->mab"), as elementwise mult-adds."""
     return (Ja[..., 0, :, None] * Jb[..., 0, None, :]
             + Ja[..., 1, :, None] * Jb[..., 1, None, :]
             + Ja[..., 2, :, None] * Jb[..., 2, None, :])
@@ -61,7 +59,7 @@ def _outer3(Ja, Jb):
 
 def _jtr3(J, r):
     """(..., 3, a), (..., 3) -> (..., a): J^T r over the 3 residual rows
-    (einsum "mij,mi->mj"), as VPU mult-adds."""
+    (einsum "mij,mi->mj"), as elementwise mult-adds."""
     return (J[..., 0, :] * r[..., 0, None]
             + J[..., 1, :] * r[..., 1, None]
             + J[..., 2, :] * r[..., 2, None])
@@ -71,10 +69,7 @@ def _gather_obs(poses, points, cam_idx, lm_idx, onehots=None):
     """Per-observation (T (M,4,4), X (M,3)) lookup.
 
     With ``onehots`` the random-access gathers become one-hot matmuls —
-    EXACT (one-hot entries are 0/1; one nonzero term per output row) and
-    measurably faster on TPU, where table gathers serialize per index
-    (profiled in scripts/bench_ba_variants.py: the gather form made the
-    residual+Jacobian phase the single largest LM cost)."""
+    EXACT (one-hot entries are 0/1; one nonzero term per output row)."""
     if onehots is None:
         return poses[cam_idx], points[lm_idx]
     oc, ol = onehots
@@ -160,13 +155,12 @@ def _build_blocks_scatter(J_pose, J_lm, r, cam_idx, lm_idx, P, L):
 def _build_blocks_onehot(J_pose, J_lm, r, oc, ol, P, L):
     """Gradient/Hessian blocks as ONE-HOT MATMUL contractions.
 
-    TPU scatter-add serializes one row per update — at M=4096 obs x 40 LM
-    iterations x B windows it dominates the solve. The same reductions are
-    matmuls against the (M, P) / (M, L) index one-hots, which run on the
-    MXU: Hpp = oc^T @ (Jp (x) Jp), Hll = ol^T @ (Jl (x) Jl), and the
-    cross block via an (M, P, 18) masked outer product contracted with
-    ol^T (a (L, M) @ (M, P*18) matmul). The one-hots are built once per
-    solve (indices are static across LM iterations).
+    The scatter-add reductions of _build_blocks_scatter written as matmuls
+    against the (M, P) / (M, L) index one-hots: Hpp = oc^T @ (Jp (x) Jp),
+    Hll = ol^T @ (Jl (x) Jl), and the cross block via an (M, P, 18) masked
+    outer product contracted with ol^T (a (L, M) @ (M, P*18) matmul). The
+    one-hots are built once per solve (indices are static across LM
+    iterations).
     """
     g_p = oc.T @ _jtr3(J_pose, r)                                  # (P, 6)
     g_l = ol.T @ _jtr3(J_lm, r)                                    # (L, 3)
@@ -181,28 +175,32 @@ def _build_blocks_onehot(J_pose, J_lm, r, oc, ol, P, L):
 
 
 def _bf16mm(a, b, passes: int = 1):
-    """Reduced-precision MXU matmul with float32 accumulation, bypassing
-    the surrounding @full_precision f32 emulation.
+    """Reduced-precision matmul with float32 accumulation, bypassing the
+    surrounding @full_precision float32 setting.
 
     passes=1: bf16 inputs, single pass (~4e-3 relative).
-    passes=3: f32 inputs split into bf16 triples by the MXU (HIGH —
-      ~f32 fidelity at half the 6-pass HIGHEST cost)."""
+    passes=3: each f32 input split into a bf16 hi/lo pair and three bf16
+      products summed in f32 (``BF16_BF16_F32_X3``: about 16 mantissa
+      bits, between TF32 and f32). The algorithm is named explicitly:
+      ``Precision.HIGH`` means TF32 (about 10 mantissa bits) on the GPU,
+      not bf16x3."""
     if passes == 1:
         return jax.lax.dot(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
                            precision=jax.lax.Precision.DEFAULT,
                            preferred_element_type=jnp.float32)
-    return jax.lax.dot(a, b, precision=jax.lax.Precision.HIGH,
+    return jax.lax.dot(a, b,
+                       precision=jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
                        preferred_element_type=jnp.float32)
 
 
 def _build_blocks_onehot_bf16(J_pose, J_lm, r, oc, ol, P, L,
                               passes: int = 1):
-    """One-hot block build with the HESSIAN contractions at reduced MXU
+    """One-hot block build with the HESSIAN contractions at reduced matmul
     precision.
 
     Inexact-Newton split: the gradient (g_p, g_l) keeps full f32 matmul
     precision — it sets the optimum the iteration converges to — while
-    Hpp/Hll/Wc take ``passes``-pass MXU matmuls, which only perturbs the
+    Hpp/Hll/Wc take ``passes``-pass bf16 matmuls, which only perturbs the
     step DIRECTION (the f32 cost accept/reject in the LM driver guards
     every step).
 
@@ -258,59 +256,15 @@ def _inv3x3(A):
     return adj * inv_det[..., None, None]
 
 
-@jax.custom_batching.custom_vmap
-def _spd_solve(S: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
-    """Solve the SPD reduced pose system S x = g.
-
-    Unbatched: XLA Cholesky. Under vmap (the per-window solve inside
-    optimize_windows' window batch) the rule below can route to the
-    lanes-batched Pallas kernel (pallas_kernels.cholesky_solve_lanes) —
-    the batch axis becomes the lane axis so the factorization's
-    sequential steps are full-width VPU ops. Off by default: measured at
-    XLA parity isolated and VMEM-infeasible in-context (VERDICT r4 next
-    #7 — negative result, numbers in BENCH.md round 5)."""
-    chol = jax.scipy.linalg.cho_factor(S, lower=True)
-    return jax.scipy.linalg.cho_solve(chol, g)
-
-
-@_spd_solve.def_vmap
-def _spd_solve_vmap(axis_size, in_batched, S, g):
-    S_b, g_b = in_batched
-    if not S_b:
-        S = jnp.broadcast_to(S, (axis_size,) + S.shape)
-    if not g_b:
-        g = jnp.broadcast_to(g, (axis_size,) + g.shape)
-    import os
-
-    N = S.shape[-1]
-    # OPT-IN (SLAM_TPU_CHOL_LANES=1), kept as a measured negative result
-    # (BENCH.md round 5): isolated on chip the lanes kernel solves the
-    # 20-iter B=128 N=144 scan in 6.8 ms vs XLA's 6.4 ms — XLA's batched
-    # Cholesky is already at parity, because the solve is ~1.4% of the
-    # 457.8 ms engine iteration, not its floor (the r4 roofline
-    # misattributed). In-context the kernel doesn't even compile: lanes
-    # <128 pad to 128 under T(8,128) tiling so the (144,144,·) buffer is
-    # 10.6 MB regardless, and copy-insertion inside the LM while-body
-    # defeats the input/output alias -> 20.39 MB scoped VMEM > 16 MB.
-    if (jax.default_backend() == "tpu" and axis_size >= 32
-            and N % 8 == 0 and N <= 152
-            and os.environ.get("SLAM_TPU_CHOL_LANES", "0") == "1"):
-        from . import pallas_kernels as pk
-
-        return pk.cholesky_solve_lanes(S, g), True
-    chol = jax.scipy.linalg.cho_factor(S, lower=True)
-    return jax.scipy.linalg.cho_solve(chol, g), True
-
-
 def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam,
                  onehots=None, mm_passes=0):
     """Solve the damped normal equations by landmark marginalization.
 
     Returns (delta_poses (P, 6), delta_points (L, 3)). Pose 0 is frozen.
-    With ``onehots`` = (oc (M, P), ol (M, L)) the blocks are built by MXU
+    With ``onehots`` = (oc (M, P), ol (M, L)) the blocks are built by
     matmul contraction instead of scatter-add (see _build_blocks_onehot);
     ``mm_passes`` in (1, 3) additionally runs the Hessian contractions
-    and the Schur reduction matmul at reduced MXU precision (f32
+    and the Schur reduction matmul at reduced precision (f32
     gradient — inexact Newton; see _build_blocks_onehot_bf16)."""
     dtype = J_pose.dtype
     if onehots is not None and mm_passes:
@@ -331,7 +285,7 @@ def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam,
     Hll_d = Hll + lam * eyeL[None] + 1e-8 * eyeL[None]
     Hll_inv = _inv3x3(Hll_d)  # (L, 3, 3) closed-form batched inverses
 
-    # reduced (Schur) system on poses — flat MXU matmuls over (L*3)
+    # reduced (Schur) system on poses — flat matmuls over (L*3)
     WHinv = (Wc[..., 0, None] * Hll_inv[:, None, None, 0, :]
              + Wc[..., 1, None] * Hll_inv[:, None, None, 1, :]
              + Wc[..., 2, None] * Hll_inv[:, None, None, 2, :])  # (L, P, 6, 3)
@@ -341,10 +295,8 @@ def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam,
         U = _bf16mm(A, Bm.T, mm_passes).reshape(P, 6, P, 6)
     else:
         U = (A @ Bm.T).reshape(P, 6, P, 6)
-    # block-diagonal Hpp add as a broadcast multiply against eye(P) —
-    # scatter-free: the .at[diag, :, diag, :].add this replaces is an
-    # XLA scatter, measured as the BA engine's dominant cost on TPU
-    # (BENCH.md round-5 phase ablation)
+    # block-diagonal Hpp add as a broadcast multiply against eye(P),
+    # scatter-free (it replaces an .at[diag, :, diag, :].add scatter)
     S = Hpp_d[:, :, None, :] * jnp.eye(P, dtype=dtype)[:, None, :, None] - U
     ghat = g_p - (A @ g_l.reshape(L * 3)).reshape(P, 6)
 
@@ -355,12 +307,10 @@ def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam,
     ghat = ghat.reshape(P * 6) * mask
 
     # S is symmetric positive definite (damped GN + identity gauge rows):
-    # Cholesky is the fast TPU path (LM's accept/reject absorbs any f32
-    # breakdown — a NaN step is simply rejected). _spd_solve routes the
-    # batched solve (XLA batched Cholesky by default; the opt-in Pallas
-    # lanes kernel under SLAM_TPU_CHOL_LANES=1 — see its vmap rule for
-    # why it lost the A/B).
-    dp = -_spd_solve(S, ghat).reshape(P, 6)
+    # Cholesky (LM's accept/reject absorbs any f32 breakdown — a NaN step
+    # is simply rejected)
+    chol = jax.scipy.linalg.cho_factor(S, lower=True)
+    dp = -jax.scipy.linalg.cho_solve(chol, ghat).reshape(P, 6)
 
     # back-substitute landmarks: dl = -Hll^-1 (g_l + W^T dp)
     Wt_dp = (Bm.T @ dp.reshape(P * 6)).reshape(L, 3)
@@ -386,24 +336,21 @@ def _huber_weights(r: jnp.ndarray, delta: float) -> jnp.ndarray:
     return s
 
 
-def default_engine() -> str:
-    """Schur-block engine by backend: matmul contraction feeds the MXU on
-    accelerators; scatter-add is smaller and faster on CPU hosts.
+# Schur-block engine by backend, each the winner of an A/B on that
+# backend. CPU: scatter-add is smaller and faster than the one-hot
+# matmuls. GPU: scatter-add (atomic adds) is also the fastest and the
+# closest to a float64 solve at P24/L512/M4096 (PERF.md, "Kernel decisions
+# on the H100").
+DEFAULT_ENGINE = {"cpu": "scatter", "gpu": "scatter"}
 
-    On accelerators the default is "onehot_b3": 3-pass (bf16x3, ~f32
-    fidelity) Hessian-block matmuls with an f32 gradient — ~1.7x the
-    6-pass f32 one-hot engine at bench shapes with keyframe-ATE parity.
-    The 1-pass "onehot_bf16" engine is faster still (2.1x) but inflates
-    trajectory error on low-parallax windows where cond(S) exceeds
-    1/eps_bf16 (see _build_blocks_onehot_bf16) — opt-in only.
 
-    (A fourth engine — inverting the index maps once per solve and
-    building the blocks by one (L, P, 72) gather — was prototyped and
-    measured 1.9x SLOWER than one-hot matmuls on TPU at bench shapes: the
-    random-access gather loses to the MXU even at 6-pass f32 emulation.)"""
-    import jax as _jax
-
-    return "scatter" if _jax.default_backend() == "cpu" else "onehot_b3"
+def default_engine(backend: str | None = None) -> str:
+    """The Schur-block engine ``optimize_bundle`` uses when none is given
+    (``backend`` defaults to JAX's default backend)."""
+    backend = backend or jax.default_backend()
+    if backend not in DEFAULT_ENGINE:
+        raise ValueError(f"no default BA engine for backend {backend!r}")
+    return DEFAULT_ENGINE[backend]
 
 
 @partial(jax.jit, static_argnames=("iters", "huber_delta", "engine"))
@@ -430,17 +377,15 @@ def optimize_bundle(
     pure Gaussian factors, useful when track outliers survive the RANSAC
     gates.
 
-    ``engine``: "onehot" builds the Schur blocks by MXU matmul contraction
-    against index one-hots (scatter-add serializes on TPU); "onehot_b3"
-    runs the Hessian contractions at 3-pass bf16x3 precision with an f32
-    gradient (the TPU default — ~f32 fidelity, half the HIGHEST-pass
-    cost); "onehot_bf16" uses single-pass bf16 blocks (fastest, but
-    inflates ATE on ill-conditioned windows — opt-in); "scatter" is the
-    XLA scatter-add path (lower memory, the better choice on CPU).
-    Default (None) resolves by backend at trace time: scatter on cpu,
-    onehot_b3 elsewhere. The one-hot engines also serve the
-    per-observation pose/landmark lookups as exact one-hot matmuls
-    instead of gathers.
+    ``engine``: "onehot" builds the Schur blocks by float32 matmul
+    contraction against index one-hots; "onehot_b3" runs the Hessian
+    contractions as bf16x3 products (``BF16_BF16_F32_X3``, ~16 mantissa
+    bits) with an f32 gradient; "onehot_bf16" uses single-pass bf16 blocks
+    (inflates ATE on ill-conditioned windows — opt-in); "scatter" is the
+    XLA scatter-add path (lower memory). Default (None) resolves by
+    backend at trace time (:func:`default_engine`). The one-hot engines
+    also serve the per-observation pose/landmark lookups as exact one-hot
+    matmuls instead of gathers.
 
     Returns (poses, points, final_cost, lam).
     """

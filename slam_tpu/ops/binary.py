@@ -2,22 +2,21 @@
 
 Reference surface: the headline AKAZE configuration matches binary MLDB
 descriptors with ``BFMatcher(cv2.NORM_HAMMING, crossCheck=True)``
-(final_project/algorithms/matching.py:19-24). The TPU-native design does
-NOT bit-pack and popcount — it stores each bit as a ±1 bf16 lane so the
-XOR-popcount collapses onto the MXU:
+(final_project/algorithms/matching.py:19-24). This design does NOT
+bit-pack and popcount — it stores each bit as a ±1 bf16 lane so the
+XOR-popcount collapses into a matrix product:
 
     popcount(a XOR b) = (D - <s_a, s_b>) / 2,   s = 2*bit - 1 in {-1,+1}
 
 One bf16 matmul with f32 accumulation therefore computes the EXACT
 Hamming distance for all pairs (every value is a small integer: |s.s| <=
 D = 128, exactly representable in bf16 inputs / f32 accumulation), and
-the fused one-pass mutual-nearest Pallas kernel (pallas_kernels.py)
-applies unchanged: its L2-form base distance 2 - 2<s_a, s_b> =
+the float mutual-nearest matcher (ops/matching.mutual_match) applies
+unchanged: its L2-form base distance 2 - 2<s_a, s_b> =
 (2 - 2D) + 4*hamming is an affine, strictly increasing function of the
 Hamming distance, so every argmin / crossCheck decision is bit-identical
 to a popcount matcher; only the reported distance is mapped back to bit
-counts. This beats an int8/bitcount path on TPU: the MXU is the fastest
-popcount in the machine.
+counts.
 """
 
 from __future__ import annotations
@@ -79,8 +78,8 @@ def hamming_mutual_match(
     """``BFMatcher(NORM_HAMMING, crossCheck=True)`` equivalent.
 
     Same contract as ops/matching.mutual_match but distances are Hamming
-    bit counts. Dispatches to the fused Pallas kernel on TPU through the
-    same eligibility rules as the float path.
+    bit counts, through the same matcher (and kernel routing) as the
+    float path.
     """
     D = sbits_a.shape[-1]
     out = matching.mutual_match(

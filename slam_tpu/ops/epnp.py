@@ -174,10 +174,9 @@ def rigid_align_3pt(pa: jnp.ndarray, pb: jnp.ndarray):
     Builds an orthonormal triad from each triple and composes
     R = B A^T — exact for consistent correspondences (the minimal-set
     case RANSAC hypothesis generation feeds it). jnp.linalg.svd on
-    batches of 3x3s lowers to a slow iterative loop on TPU (~8 us per
-    matrix, which made hypothesis generation dominate the whole frontend
-    RANSAC: cost scaled with hypothesis count and not with point count);
-    the triad form is pure elementwise/cross-product arithmetic.
+    batches of 3x3s is an iterative solver per matrix, whose cost scales
+    with the hypothesis count; the triad form is pure
+    elementwise/cross-product arithmetic.
 
     Degenerate (collinear) triples return ok=False, like
     :func:`rigid_align`'s singular-value test.
@@ -259,7 +258,7 @@ def refine_pose_gn(
     # Carry (T, r, J, cost) across iterations: the accept test's cost at
     # T_new doubles as the next iteration's residual evaluation, so each
     # step runs res_jac once (the naive step + separate accept-residuals
-    # evaluated the projection twice and was ~2x the refine cost on chip).
+    # evaluated the projection twice).
     # A rejected step leaves the carry unchanged, which reproduces the
     # previous behavior exactly (the same xi would be retried and rejected
     # again — i.e. the iteration has converged).

@@ -1,22 +1,18 @@
-"""TPU-native feature detection + description.
+"""Batched feature detection + description.
 
 Replaces the OpenCV C++ detectors/descriptors the reference binds to
 (``cv2.SIFT_create(2500)`` / ``cv2.AKAZE_create`` — reference
 final_project/algorithms/matching.py:19-35) with a batched, static-shape
-pipeline designed for the MXU/VPU:
+pipeline of dense image math that XLA fuses:
 
-  * detection:  Harris corner response + 5x5 non-max suppression — on
-    TPU both come fused from one Pallas VMEM pass per row tile
-    (ops/pallas_kernels.harris_response_batch; single-feature XLA convs
-    leave the MXU idle), with a jnp conv fallback elsewhere — then a
+  * detection:  Harris corner response + 5x5 non-max suppression, then a
     *gridded top-K* selection that returns a fixed number of keypoints
     per image with a validity mask (static shapes — no data-dependent
     keypoint counts).
   * description: a SIFT-style 4x4x8 gradient-orientation-histogram
     descriptor (128-d float) sampled on a 16x16 patch around each keypoint.
-    It is computed for ALL keypoints of ALL images in one batched gather +
-    one-hot-matmul pass, which makes descriptor matching downstream a pure
-    bf16 matmul on the MXU.
+    It is computed for ALL keypoints of ALL images in one batched gather
+    pass, which makes descriptor matching downstream a pure bf16 matmul.
 
 Exact OpenCV descriptor bit-parity is a non-goal (SURVEY.md §7.3): the
 parity target is pipeline metrics (ATE / fps), and these detectors feed the
@@ -112,26 +108,23 @@ def detect(
     border: int = 12,
     min_response: float = 1e-7,
     resp: jnp.ndarray | None = None,
-    resp_nms: jnp.ndarray | None = None,
 ):
     """Detect up to ``max_kp`` corners on one image.
 
     A uniform spatial distribution matters more for odometry stability than
     raw response ranking, so selection is *gridded*: the top-3 corners of
     every ``cell`` x ``cell`` tile are extracted with three masked argmax
-    passes over the (n_cells, cell^2) view — cheap VPU reductions — and the
+    passes over the (n_cells, cell^2) view — cheap row reductions — and the
     final ``max_kp`` are chosen from those candidates with per-cell rank as
     the primary key (every cell's best first). The only ``top_k`` runs over
-    3*n_cells candidates instead of all H*W pixels, which is what makes
-    K=2048 detection cheap on TPU.
+    3*n_cells candidates instead of all H*W pixels.
 
     Returns dict with xy (max_kp, 2) float32 pixel coords, resp (max_kp,),
     valid (max_kp,) bool.
     """
     if resp is None:
         resp = harris_response(img)
-    return select_keypoints(resp, max_kp, cell, border, min_response,
-                            resp_nms=resp_nms)
+    return select_keypoints(resp, max_kp, cell, border, min_response)
 
 
 def select_keypoints(
@@ -140,7 +133,6 @@ def select_keypoints(
     cell: int = 16,
     border: int = 12,
     min_response: float = 1e-7,
-    resp_nms: jnp.ndarray | None = None,
 ):
     """Gridded top-K keypoint selection on any response map (shared by the
     Harris and nonlinear-scale-space detectors), with quadratic subpixel
@@ -154,17 +146,7 @@ def select_keypoints(
     """
     H, W = resp.shape
     resp_raw = resp
-    # the fused Pallas detector emits the suppressed map alongside the raw
-    # response; recompute only when it wasn't supplied. Its boundary
-    # semantics (zero-padded response inside the suppression window)
-    # differ from _nms (-inf padding) within 2 px of the image edge, so a
-    # supplied map is only interchangeable behind a border of >= 4 px.
-    if resp_nms is not None and border < 4:
-        raise ValueError(
-            f"border={border} < 4 with a precomputed resp_nms: the fused "
-            "NMS map's edge semantics differ from _nms inside 4 px"
-        )
-    resp = _nms(resp) if resp_nms is None else resp_nms
+    resp = _nms(resp)
 
     # border + validity mask
     yy = jax.lax.broadcasted_iota(jnp.int32, (H, W), 0)
@@ -183,9 +165,8 @@ def select_keypoints(
     )
 
     # top-3 per cell via masked argmax passes. The mask-out is a
-    # broadcasted where, NOT a scatter: `.at[rows, argmax].set(-inf)`
-    # serializes one row per update on TPU and cost 2.5x the whole
-    # selection (0.49 -> 0.19 ms/image measured on v5e).
+    # broadcasted where that fuses with the reductions, not a scatter
+    # (`.at[rows, argmax].set(-inf)`).
     cand_val, cand_pos = [], []
     t = tiles
     lanes = jnp.arange(t.shape[1], dtype=jnp.int32)[None, :]
@@ -223,10 +204,7 @@ def select_keypoints(
     xs = (sel_cell % Wc) * cell + sel_pos % cell
     valid = jnp.isfinite(top_s)
 
-    # quadratic subpixel refinement on the raw response map. (A single
-    # (3,3)-slice lax.gather per keypoint was tried and rejected: explicit
-    # lax.gather slices hit an XLA TPU slow path ~8x worse than fancy
-    # indexing — see scripts/bench_gather.py.)
+    # quadratic subpixel refinement on the raw response map
     xc = jnp.clip(xs, 1, W - 2)
     yc = jnp.clip(ys, 1, H - 2)
     r0 = resp_raw[yc, xc]
@@ -265,9 +243,8 @@ def orientation_cell_maps(img: jnp.ndarray) -> jnp.ndarray:
     of orientation o around p.
 
     This moves ALL per-keypoint arithmetic of the SIFT-style descriptor
-    into dense image-space convolutions (VPU/MXU-friendly, shared across
-    keypoints); ``describe`` then just samples 16 cell centers per
-    keypoint.
+    into dense image-space convolutions shared across keypoints;
+    ``describe`` then just samples 16 cell centers per keypoint.
     """
     blur = gaussian_blur(img, 1.0, 2)
     gx, gy = _sobel(blur)
@@ -292,10 +269,10 @@ def orientation_cell_maps(img: jnp.ndarray) -> jnp.ndarray:
     return maps
 
 
-def _gather_cells_fancy(maps: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
+def _gather_cells(maps: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """(8, H, W) maps + (K, 2) keypoints -> (K, 16, 8) descriptor cells via
     16 per-cell fancy indices (clipped independently per cell). Works for
-    any keypoint position; 16 random-access indices per keypoint."""
+    any keypoint position."""
     K = xy.shape[0]
     offs = (jnp.arange(4, dtype=jnp.float32) - 1.5) * CELL  # (-6,-2,2,6)
     oy, ox = jnp.meshgrid(offs, offs, indexing="ij")
@@ -313,50 +290,10 @@ def _gather_cells_fancy(maps: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     return maps[:, py, px].transpose(1, 2, 0)  # (K, 16, 8)
 
 
-def build_shifted_cell_maps(maps: jnp.ndarray) -> jnp.ndarray:
-    """(8, H, W) orientation-cell maps -> (32, H, W) x-shifted stack where
-    channel ``j*8 + c`` at pixel (y, x) equals ``maps[c, y, clip(x+ox_j)]``
-    for the 4 descriptor-cell x-offsets ox = (-6, -2, 2, 6).
-
-    Sampling the stack at the 4 cell-row y-positions then yields all 16
-    descriptor cells with 4 gather indices per keypoint instead of 16 —
-    the TPU gather is per-index bound (scripts/bench_gather.py), so this
-    is the fast layout. Edge replication reproduces ``clip`` exactly, so
-    results are bit-identical for every keypoint position. On TPU the
-    fused detection kernel emits this stack directly
-    (pallas_kernels.detect_maps_batch) — this jnp builder is the fallback
-    / reference used by parity tests.
-    """
-    lo = 3 * CELL // 2  # 6
-    W = maps.shape[2]
-    padded = jnp.pad(maps, ((0, 0), (0, 0), (lo, lo)), mode="edge")
-    sh = [padded[:, :, lo + o: lo + o + W] for o in (-lo, -CELL // 2,
-                                                     CELL // 2, lo)]
-    return jnp.concatenate(sh, axis=0)
-
-
-def _gather_cells_shifted(shifted: jnp.ndarray, xy: jnp.ndarray
-                          ) -> jnp.ndarray:
-    """(32, H, W) shifted stack + (K, 2) keypoints -> (K, 16, 8) cells via
-    4 fancy indices per keypoint. Bit-identical to
-    :func:`_gather_cells_fancy` on the corresponding 8-channel maps."""
-    K = xy.shape[0]
-    H = shifted.shape[1]
-    W = shifted.shape[2]
-    offs = (jnp.arange(4, dtype=jnp.float32) - 1.5) * CELL
-    py = jnp.clip(
-        jnp.round(xy[:, 1:2] + offs[None, :]).astype(jnp.int32), 0, H - 1
-    )                                                   # (K, 4)
-    px = jnp.clip(jnp.round(xy[:, 0:1]).astype(jnp.int32), 0, W - 1)
-    g = shifted[:, py, jnp.broadcast_to(px, py.shape)]  # (32, K, 4)
-    # channel layout is ix-major (j*8+c); cells must come out (iy, ix, c).
-    # The fused TPU kernel emits the stack in bf16 — normalize in f32.
-    return g.transpose(1, 2, 0).reshape(K, 16, 8).astype(jnp.float32)
 
 
 def describe(img: jnp.ndarray, xy: jnp.ndarray, valid: jnp.ndarray,
-             maps: jnp.ndarray | None = None,
-             shifted_maps: jnp.ndarray | None = None) -> jnp.ndarray:
+             maps: jnp.ndarray | None = None) -> jnp.ndarray:
     """128-d SIFT-like descriptors for all keypoints of one image.
 
     4x4 spatial cells x 8 orientation bins, sampled from the precomputed
@@ -365,18 +302,10 @@ def describe(img: jnp.ndarray, xy: jnp.ndarray, valid: jnp.ndarray,
     then the standard SIFT normalization: L2 -> clip 0.2 -> L2. Upright
     and single scale — exact OpenCV SIFT parity is a non-goal
     (SURVEY.md §7.3); the descriptor feeds the same downstream geometry.
-
-    ``shifted_maps`` (the (32, H, W) stack of :func:`build_shifted_cell_maps`,
-    emitted directly by the fused TPU detection kernel) samples the same
-    cells with 4 gather indices per keypoint instead of 16 — bit-identical
-    results, ~2x less random-access wall-clock on TPU.
     """
-    if shifted_maps is not None:
-        cells = _gather_cells_shifted(shifted_maps, xy)
-    else:
-        if maps is None:
-            maps = orientation_cell_maps(img)  # (8, H, W)
-        cells = _gather_cells_fancy(maps, xy)
+    if maps is None:
+        maps = orientation_cell_maps(img)  # (8, H, W)
+    cells = _gather_cells(maps, xy)
     desc = cells.reshape(xy.shape[0], DESC_DIM)
 
     # SIFT normalization: L2 -> clip 0.2 -> L2
@@ -389,46 +318,23 @@ def describe(img: jnp.ndarray, xy: jnp.ndarray, valid: jnp.ndarray,
 @partial(jax.jit, static_argnames=("max_kp",))
 def detect_and_describe(img: jnp.ndarray, max_kp: int = DEFAULT_MAX_KP,
                         resp: jnp.ndarray | None = None,
-                        resp_nms: jnp.ndarray | None = None,
-                        maps: jnp.ndarray | None = None,
-                        shifted_maps: jnp.ndarray | None = None):
+                        maps: jnp.ndarray | None = None):
     """cv2 ``detectAndCompute`` equivalent for one image (jit, static out).
 
-    ``resp`` optionally supplies a precomputed Harris response (the fused
-    batched Pallas kernel, pallas_kernels.harris_response_batch);
-    ``shifted_maps`` the (32, H, W) x-shifted descriptor-cell stack
-    (pallas_kernels.detect_maps_batch(shifted=True)).
+    ``resp`` / ``maps`` optionally supply a precomputed Harris response /
+    orientation-cell maps.
     Returns dict: xy (max_kp, 2), desc (max_kp, 128), valid (max_kp,).
     """
-    det = detect(img, max_kp=max_kp, resp=resp, resp_nms=resp_nms)
-    desc = describe(img, det["xy"], det["valid"], maps=maps,
-                    shifted_maps=shifted_maps)
+    det = detect(img, max_kp=max_kp, resp=resp)
+    desc = describe(img, det["xy"], det["valid"], maps=maps)
     return {"xy": det["xy"], "desc": desc, "valid": det["valid"], "resp": det["resp"]}
 
 
 def detect_and_describe_batch(imgs: jnp.ndarray,
-                              max_kp: int = DEFAULT_MAX_KP,
-                              use_pallas: bool | None = None):
-    """Batched single-octave detect+describe over (F, H, W) images.
-
-    On TPU the Harris response comes from the fused Pallas kernel (one
-    VMEM pass per row tile — the 1-channel conv pipeline is the detection
-    bottleneck otherwise); elsewhere it falls back to the jnp pipeline.
-    """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from . import pallas_kernels as pk
-
-        resp, resp_nms, smaps = pk.detect_maps_batch(imgs, shifted=True)
-        return jax.vmap(
-            lambda im, r, rn, sm: detect_and_describe(
-                im, max_kp=max_kp, resp=r, resp_nms=rn, shifted_maps=sm)
-        )(imgs, resp, resp_nms, smaps)
-    resp = jax.vmap(harris_response)(imgs)
+                              max_kp: int = DEFAULT_MAX_KP):
+    """Batched single-octave detect+describe over (F, H, W) images."""
     return jax.vmap(
-        lambda im, r: detect_and_describe(im, max_kp=max_kp, resp=r)
-    )(imgs, resp)
+        lambda im: detect_and_describe(im, max_kp=max_kp))(imgs)
 
 
 def _downsample2(img: jnp.ndarray) -> jnp.ndarray:
@@ -443,7 +349,7 @@ def detect_and_describe_multiscale(
     """Pyramid detection + description over ``num_levels`` octaves.
 
     The reference's SIFT/AKAZE operate on a scale space (matching.py:19-35:
-    AKAZE 4 octaves); this is the batched TPU analogue: each octave gets a
+    AKAZE 4 octaves); this is the batched analogue: each octave gets a
     share of the keypoint budget (full resolution keeps half at every
     split), keypoints are described at their own octave (so the descriptor
     window scales with the feature), and coordinates are mapped back to
@@ -495,48 +401,22 @@ def detect_and_describe_multiscale_batch(
     imgs: jnp.ndarray,
     max_kp: int = DEFAULT_MAX_KP,
     num_levels: int = 2,
-    use_pallas: bool | None = None,
 ):
-    """Batched pyramid detection over (F, H, W) images.
-
-    Same contract as vmapping :func:`detect_and_describe_multiscale`, but
-    each octave's Harris response / NMS / orientation maps come from the
-    fused Pallas kernels on TPU (the per-octave conv pipeline has the
-    same 1-channel-conv bottleneck as single-scale detection).
-    """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    """Batched pyramid detection over (F, H, W) images; the same contract
+    as vmapping :func:`detect_and_describe_multiscale`."""
     budgets = _multiscale_budgets(max_kp, num_levels)
 
     outs = []
     level_imgs = imgs
     for lvl, k in enumerate(budgets):
-        # Pallas path: keep every descriptor sample (cell centers at
-        # +/-6 px) out of the <=5 px border band where the fused maps'
-        # SAME-padding semantics differ from the jnp fallback — border 12
-        # at every octave guarantees cross-backend descriptor parity.
-        border = 12 if use_pallas else max(4, 12 >> lvl)
+        border = max(4, 12 >> lvl)
         factor = float(1 << lvl)
-        if use_pallas:
-            from . import pallas_kernels as pk
 
-            resp, resp_nms, smaps = pk.detect_maps_batch(level_imgs,
-                                                         shifted=True)
+        def one(im, k=k, border=border):
+            det = detect(im, max_kp=k, border=border)
+            return det, describe(im, det["xy"], det["valid"])
 
-            def one(im, r, rn, sm, k=k, border=border):
-                det = detect(im, max_kp=k, border=border, resp=r,
-                             resp_nms=rn)
-                desc = describe(im, det["xy"], det["valid"],
-                                shifted_maps=sm)
-                return det, desc
-
-            det, desc = jax.vmap(one)(level_imgs, resp, resp_nms, smaps)
-        else:
-            def one_jnp(im, k=k, border=border):
-                det = detect(im, max_kp=k, border=border)
-                return det, describe(im, det["xy"], det["valid"])
-
-            det, desc = jax.vmap(one_jnp)(level_imgs)
+        det, desc = jax.vmap(one)(level_imgs)
         F = imgs.shape[0]
         outs.append({
             "xy": det["xy"] * factor,

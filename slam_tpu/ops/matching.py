@@ -1,4 +1,4 @@
-"""Batched descriptor matching on the MXU.
+"""Batched descriptor matching as matrix products.
 
 Replaces ``cv2.BFMatcher(crossCheck=True).match`` (reference:
 final_project/algorithms/matching.py:21-34, used at database.py:54-55 and
@@ -7,7 +7,8 @@ loop_closure.py:422) and the rectified-stereo inlier gate
 
 Design: descriptors are L2-normalized float vectors, so the full pairwise
 distance matrix is ``2 - 2 A @ B^T`` — one (K x D) @ (D x K) matmul in
-bfloat16 on the MXU per image pair, followed by row/col argmin and the
+bfloat16 with float32 accumulation per image pair, followed by row/col
+argmin and the
 mutual cross-check as elementwise masking. Everything is static-shape with
 validity masks; invalid (padding) rows never win a match.
 
@@ -23,6 +24,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+from . import match_kernel
 
 BIG = jnp.float32(1e9)
 
@@ -41,7 +44,7 @@ def distance_matrix(
     """Squared-L2 distance matrix (Ka, Kb) with invalid entries set BIG.
 
     Descriptors are unit-norm, so d^2 = 2 - 2 a.b; computed via one bf16
-    matmul with f32 accumulation (MXU path).
+    matmul with f32 accumulation.
     """
     sim = jax.lax.dot_general(
         desc_a.astype(jnp.bfloat16),
@@ -52,20 +55,6 @@ def distance_matrix(
     d2 = 2.0 - 2.0 * sim
     mask = valid_a[:, None] & valid_b[None, :]
     return jnp.where(mask, d2, BIG)
-
-
-def _pallas_eligible(desc_a, desc_b) -> bool:
-    """Use the fused Pallas kernel on TPU when shapes are tile-aligned."""
-    try:
-        from . import pallas_kernels as pk
-
-        return (
-            jax.default_backend() == "tpu"
-            and desc_a.shape[0] % pk.TILE_A == 0
-            and desc_b.shape[0] % pk.TILE_B == 0
-        )
-    except Exception:
-        return False
 
 
 def window_penalty(
@@ -92,6 +81,18 @@ def window_penalty(
     return jnp.where(bad, BIG, 0.0)
 
 
+def dense_mutual_nearest(desc_a, desc_b, valid_a, valid_b, xy_a=None,
+                         xy_b=None, window=None):
+    """Both argmin directions of the (Ka, Kb) masked, windowed distance
+    matrix, materialized: (row_dist (Ka,), row_idx (Ka,), col_idx (Kb,)).
+    The reference for ops/match_kernel.mutual_nearest."""
+    d = distance_matrix(desc_a, desc_b, valid_a, valid_b)
+    if window is not None:
+        d = d + window_penalty(xy_a, xy_b, window)
+    return (jnp.min(d, axis=1), jnp.argmin(d, axis=1).astype(jnp.int32),
+            jnp.argmin(d, axis=0).astype(jnp.int32))
+
+
 def mutual_match(
     desc_a: jnp.ndarray,
     desc_b: jnp.ndarray,
@@ -108,29 +109,22 @@ def mutual_match(
     iff j = argmin_j d(i, j) AND i = argmin_i d(i, j). Optionally guided by
     a spatial search ``window`` (see :func:`window_penalty`).
 
-    On TPU with tile-aligned feature budgets this dispatches to the fused
-    one-pass Pallas kernel (ops/pallas_kernels.py) — the (K, K) distance
-    matrix never touches HBM. The jnp path below is the CPU/odd-shape
-    fallback and the numerical reference.
+    On the GPU with tile-aligned feature budgets this dispatches to the
+    fused kernel (ops/match_kernel.py), which never stores the (K, K)
+    distance matrix. The jnp path below is the CPU/odd-shape path and the
+    numerical reference.
 
     Returns dict:
       target_idx: (Ka,) int32, matched row in B or -1.
       dist:       (Ka,) float32 distance (BIG where unmatched).
       matched:    (Ka,) bool.
     """
-    if _pallas_eligible(desc_a, desc_b):
-        from . import pallas_kernels as pk
-
-        return pk.mutual_match_pallas(desc_a, desc_b, valid_a, valid_b,
-                                      max_dist=max_dist, xy_a=xy_a,
-                                      xy_b=xy_b, window=window)
-    d = distance_matrix(desc_a, desc_b, valid_a, valid_b)
-    if window is not None:
-        d = d + window_penalty(xy_a, xy_b, window)
-    best_b = jnp.argmin(d, axis=1)  # (Ka,)
-    best_a = jnp.argmin(d, axis=0)  # (Kb,)
-    dist = jnp.min(d, axis=1)
-    mutual = best_a[best_b] == jnp.arange(d.shape[0])
+    nearest = (match_kernel.mutual_nearest
+               if match_kernel.eligible(desc_a, desc_b)
+               else dense_mutual_nearest)
+    dist, best_b, best_a = nearest(desc_a, desc_b, valid_a, valid_b,
+                                   xy_a, xy_b, window)
+    mutual = best_a[best_b] == jnp.arange(desc_a.shape[0])
     matched = mutual & valid_a & (dist < max_dist)
     target_idx = jnp.where(matched, best_b, -1)
     return {

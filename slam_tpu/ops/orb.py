@@ -4,10 +4,10 @@ Reference surface: the feature factory's third detector family,
 ``cv2.ORB_create`` (VAN_ex/code/ex1.py:175-194 keypoints/matching intro,
 ex4_v2.py:62-99 ORB/AKAZE/SIFT selection); final_project keeps AKAZE/SIFT
 active (algorithms/matching.py:19-35) but the ORB path is part of the
-reference's capability surface. TPU-native design, not a cv2 translation:
+reference's capability surface. Batched design, not a cv2 translation:
 
 * FAST-9 is evaluated densely for EVERY pixel at once: the 16 Bresenham
-  circle neighbours are ``jnp.roll`` shifts of the image (elementwise VPU
+  circle neighbours are ``jnp.roll`` shifts of the image (elementwise
   ops XLA fuses into one pass over the batch), and the ">= 9 contiguous
   brighter/darker" segment test is a log-doubling AND-reduction over
   circular rotations of the 16 comparison masks — no per-pixel loop, no
@@ -19,11 +19,11 @@ reference's capability surface. TPU-native design, not a cv2 translation:
   DENSELY as two separable convolutions (ramp x ones kernels) over a
   31x31 square patch — two cheap image passes shared by all keypoints
   instead of per-keypoint patch gathers. (The square window replaces
-  cv2's disc: separability is the TPU-first choice; the descriptor is
+  cv2's disc: separability is the batched choice; the descriptor is
   bit-parity non-goal per SURVEY.md §7.3.)
 * Rotated BRIEF: 128 pair tests on the sigma=2 blurred image, steered by
   the CONTINUOUS keypoint angle (cos/sin rotation of the static pattern —
-  no 12-degree lookup table; trig is free on the VPU relative to the
+  no 12-degree lookup table; trig is cheap relative to the
   gather), gathered for all keypoints at once.
 * Bits are stored as ±1/sqrt(128) f32 lanes: unit-norm, so the float-L2
   mutual matcher's distance 2 - 2<a,b> = 4*hamming/128 is an affine map
@@ -194,9 +194,7 @@ def detect_and_describe_orb_batch(
     """Batched ORB detect+describe over (F, H, W) images.
 
     The dense FAST ring test is roll/elementwise math that XLA already
-    fuses into one pass (the same reason the AKAZE diffusion kernel
-    gained little from Pallas, BENCH.md round 3), so there is no separate
-    Pallas route here.
+    fuses into one pass, so there is no hand-written kernel here.
     """
     return jax.vmap(
         lambda im: detect_and_describe_orb(im, max_kp=max_kp,

@@ -476,12 +476,11 @@ def _optimize_impl(nodes, Z_chain, si_chain, loop_i, loop_j, Z_loop,
 # digits — more than f32 carries. (The dense path has the identical limit;
 # it was simply never asked to go past ~650 nodes.)
 #
-# The fix is also the TPU-idiomatic one: these recurrences are SEQUENTIAL
-# 6x6 block chains — latency-bound anti-MXU work (~10 MFLOP at N=2560)
-# that no accelerator helps with — while f64 is software-emulated on TPU.
-# So the public wrappers pin the computation to the host CPU backend at
-# float64 and hand back float32. The batched heavy stages (frontend, BA,
-# dense pose graph at reference scale) stay on the TPU.
+# These recurrences are SEQUENTIAL 6x6 block chains — latency-bound work
+# (~10 MFLOP at N=2560) that no accelerator helps with. So the public
+# wrappers pin the computation to the host CPU backend at float64 and hand
+# back float32. The batched heavy stages (frontend, BA, dense pose graph
+# at reference scale) stay on the accelerator.
 
 def _run_on_host64(fn, *args, **kwargs):
     import numpy as np

@@ -1,15 +1,17 @@
 """Matmul-precision control for geometry kernels.
 
-On TPU, float32 matmuls/einsums default to reduced-precision MXU passes
-(bfloat16 inputs). That is the right trade for descriptor matching and
-image convolutions, but catastrophically wrong for the geometry stack:
-normal equations, SE(3) chains, Schur complements and covariance inverses
-amplify the ~3 decimal digits of bf16 into meter-level trajectory error
-(observed: 20x ATE inflation vs CPU on identical inputs).
+On the GPU, float32 matmuls/einsums default to TF32 tensor-core products
+(about 10 mantissa bits, roughly 3 decimal digits). That is the right
+trade for descriptor matching and image convolutions, but wrong for the
+geometry stack: normal equations, SE(3) chains, Schur complements and
+covariance inverses amplify a 3-digit product into meter-level trajectory
+error.
 
 ``@full_precision`` pins jnp.dot/einsum/conv inside the decorated function
-to true float32 accumulation. Applied to every geometry solver; the
-feature/matching path deliberately stays on the fast bf16 path.
+to ``Precision.HIGHEST`` (true float32 products; ``"float32"`` in
+``jax.default_matmul_precision``). Applied to every geometry solver; the
+feature/matching path deliberately stays on the fast reduced-precision
+path.
 """
 
 from __future__ import annotations

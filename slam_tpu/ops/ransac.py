@@ -104,9 +104,8 @@ def ransac_pnp(
     idx = _sample_hypotheses(key, valid, num_hypotheses)  # (H, 3)
     # Hypotheses: rigid 3D-3D alignment between world points and the
     # current frame's stereo backprojection (metric depth on both sides).
-    # Minimal 3-point sets use the SVD-free triad construction — batched
-    # 3x3 SVD is ~8 us/matrix on TPU and made hypothesis generation
-    # dominate the whole RANSAC (epnp.rigid_align_3pt docstring).
+    # Minimal 3-point sets use the SVD-free triad construction instead of
+    # a batched iterative 3x3 SVD (epnp.rigid_align_3pt docstring).
     pc_cur = stereo.backproject(calib, meas)  # (N, 3) current-camera frame
     Ts, oks = epnp.rigid_align_3pt_batched(pw[idx], pc_cur[idx])  # (H,4,4)
 

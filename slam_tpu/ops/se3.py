@@ -38,13 +38,12 @@ _SMALL_THETA2 = 1e-3
 # ---------------------------------------------------------------------------
 
 def mv3(A: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """Batched (..., 3, 3) @ (..., 3) as explicit VPU mult-adds.
+    """Batched (..., 3, 3) @ (..., 3) as explicit elementwise mult-adds.
 
-    A dot_general with a 3-wide contraction lowers to padded micro-matmuls
-    on the TPU MXU and pays the float32-emulation passes for nothing —
-    profiled on chip, the einsum forms of these tiny contractions dominated
-    the BA LM step (see ops/ba.py). Same speedup applies everywhere the
-    geometry code touches batched 3x3 blocks.
+    A dot_general with a 3-wide contraction becomes a padded micro-matmul
+    per block; the mult-add form fuses with the surrounding elementwise
+    work instead. Used everywhere the geometry code touches batched 3x3
+    blocks (see ops/ba.py).
     """
     return (A[..., :, 0] * v[..., 0, None]
             + A[..., :, 1] * v[..., 1, None]

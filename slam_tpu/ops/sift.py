@@ -1,18 +1,18 @@
-"""DoG scale-space SIFT-style detection (TPU-native).
+"""DoG scale-space SIFT-style detection.
 
 The reference's ACTIVE detector is ``cv2.SIFT_create(2500)``
 (final_project/algorithms/matching.py:27-35,72; keypoint plumbing in
 VAN_ex/code/ex4_v2.py:62-99): difference-of-Gaussians extrema over a
 Gaussian pyramid with per-keypoint scale. ``ops/features.py`` provides the
 SIFT-style *descriptor* on Harris corners; this module completes the
-family with the scale-covariant *detector* (VERDICT r4 missing #2).
+family with the scale-covariant *detector*.
 
-TPU-first design — everything is dense image math with static shapes:
+Batched design — everything is dense image math with static shapes:
 
   * Gaussian pyramid: ``intervals + 3`` separable blurs per octave
     (incremental sigmas, so each blur kernel stays small), octave
     downsampling by 2. All convs are XLA ``conv_general_dilated`` —
-    pipelined VPU work, no data-dependent shapes.
+    no data-dependent shapes.
   * DoG responses: adjacent-blur differences, ``intervals + 2`` per
     octave.
   * Extrema: a pixel is a candidate iff it is the strict max or min of
@@ -227,10 +227,10 @@ def detect_and_describe_sift_batch(
 
     The per-image working set is large — the x2-upsampled octave alone
     holds ~11 full-resolution maps (Gaussians + DoGs + gates), ~200 MB at
-    KITTI size — so a flat vmap over a 64-image frontend chunk exceeds
-    HBM (measured: 33 GB asked of a 15.75 GB chip). ``lax.map`` over
-    ``group``-sized sub-batches keeps the vmapped MXU/VPU parallelism
-    within a group while bounding live memory to one group's pyramids."""
+    KITTI size — so a flat vmap over a 64-image frontend chunk asks for
+    tens of GB of device memory. ``lax.map`` over ``group``-sized
+    sub-batches keeps the vmapped parallelism within a group while
+    bounding live memory to one group's pyramids."""
     single = lambda im: detect_and_describe_sift(  # noqa: E731
         im, max_kp=max_kp, octaves=octaves, intervals=intervals,
         contrast=contrast, upsample=upsample)

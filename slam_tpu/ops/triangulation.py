@@ -3,7 +3,7 @@
 Replaces the reference's per-point SVD loop
 (final_project/algorithms/triangulation.py:5-24, triangulate_links :41-50)
 with a single vmapped 4x4 solve over all points — thousands of
-triangulations become one batched kernel on the TPU.
+triangulations become one batched kernel.
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
 """Mesh construction and sharding helpers.
 
 The reference is single-process/single-threaded (SURVEY.md §2.4: no DP/TP/
-PP/SP and no communication backend). The TPU framework's parallel axes are
+PP/SP and no communication backend). This framework's parallel axes are
 designed from the problem structure instead:
 
   * ``frame`` axis — data parallelism over video frames: detection,
     description, stereo matching, temporal matching and RANSAC are
-    independent per frame (pair); shards ride ICI with zero collectives in
+    independent per frame (pair); shards need zero collectives in
     the forward path (results are gathered once per chunk).
   * ``window`` axis — data parallelism over keyframe windows: every bundle
     adjustment window is an independent LM problem (the reference runs
     them sequentially, project.py:45-57).
 
-Both axes map onto one flat device mesh; the same code runs on a real TPU
-slice or on the virtual CPU mesh used in CI (conftest forces
+Both axes map onto one flat device mesh; the same code runs on the GPUs
+of one host or on the virtual CPU mesh used in CI (conftest forces
 ``--xla_force_host_platform_device_count=8``).
 """
 

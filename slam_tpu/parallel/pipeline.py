@@ -10,7 +10,7 @@ stage caching in project.py:29-91 is sequential). Here the frontend is a
   [device]                 detect/match/RANSAC chunk c (jit, dispatched
                             asynchronously — JAX returns futures)
 
-so PNG decode and transfer hide behind TPU compute. Multi-sequence runs
+so PNG decode and transfer hide behind device compute. Multi-sequence runs
 (BASELINE.json config #5) reuse the same compiled kernels across
 sequences — compilation happens once for the whole batch.
 """

@@ -1,6 +1,6 @@
 """Mesh-sharded bundle adjustment and frontend steps.
 
-The multi-chip execution model (SURVEY.md §2.4 "TPU-native plan"):
+The multi-chip execution model (SURVEY.md §2.4 parallelism plan):
 all ~430 keyframe windows of a sequence are one padded batch, sharded over
 the ``window`` mesh axis; each device LM-optimizes its shard of windows
 with the identical compiled kernel (ops/ba.py). The only cross-device data

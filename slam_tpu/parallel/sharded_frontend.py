@@ -10,9 +10,9 @@ annotations. No hand-written communication.
 The chunk carry (one frame's features, used to stitch chunk boundaries)
 is replicated — it is a few MB and crosses chunks on host anyway.
 
-Per-chip cost is the single-chunk cost: an 8-chip v5e slice processes
-8x the frames per step at the same step latency (modulo the boundary
-collectives, which move one frame's features per chip).
+Per-device cost is the single-chunk cost: n devices process n x the
+frames per step at the same step latency (modulo the boundary
+collectives, which move one frame's features per device).
 """
 
 from __future__ import annotations

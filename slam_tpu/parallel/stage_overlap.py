@@ -2,7 +2,7 @@
 
 SURVEY.md §2.4 PP row — the reference runs its stages strictly
 sequentially (stage caching in final_project/project.py:29-91); the
-TPU-native plan is "detect/match (frame t+k) overlaps PnP (t) and BA
+batched plan is "detect/match (frame t+k) overlaps PnP (t) and BA
 (window t-w)". This module implements that as a two-stage-group pipeline:
 
   devices[0:n_fe]   — FRONTEND group: frame-sharded detect / describe /

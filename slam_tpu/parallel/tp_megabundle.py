@@ -2,11 +2,11 @@
 
 SURVEY.md §2.4's one optional row: window-axis DP (sharded_ba.py) covers
 the reference's ~430 independent windows, but a single WINDOW too large
-for one chip — a city-block mega-bundle with tens of thousands of
+for one device — a city-block mega-bundle with tens of thousands of
 landmarks / hundreds of thousands of observations — needs the solver
 itself sharded. There is no reference analogue (gtsam LM is
 single-process, final_project/backend/GTSam/bundle.py:199-211); this is
-the TPU-native scaling path.
+its scaling path.
 
 Decomposition (the Schur complement is a sum over landmarks):
 
@@ -24,9 +24,10 @@ and back-substitution of the landmark updates is again local. The LM
 accept/reject runs on the psum'd cost, so all devices stay in lockstep
 deterministically.
 
-Engine notes match ops/ba.py: one-hot MXU contractions for the block
-builds, 3-pass (bf16x3) Hessian blocks + f32 gradient on accelerator
-backends (inexact Newton), scatter-free.
+Engine notes match ops/ba.py: one-hot matmul contractions for the
+block builds, scatter-free; the engine ops/ba.default_engine names picks
+the Hessian-block precision (bf16x3 blocks + f32 gradient for
+"onehot_b3", inexact Newton; float32 otherwise).
 """
 
 from __future__ import annotations

@@ -16,6 +16,9 @@ or libpng is missing, and callers fall back to the pure-numpy paths.
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import platform
 import subprocess
 from pathlib import Path
 
@@ -23,21 +26,35 @@ import numpy as np
 
 _HERE = Path(__file__).parent
 _SRC = _HERE / "native.cpp"
-_LIB = _HERE / "libslamtpu_native.so"
 
 AVAILABLE = False
 _lib = None
 
 
-def _build() -> bool:
+def _lib_path() -> Path:
+    """Build product keyed to the source text and the building host: a
+    library copied along with the tree from another machine (or built
+    from another revision of the source) has another name and is never
+    loaded."""
+    key = hashlib.sha256(_SRC.read_bytes())
+    key.update(f"{platform.node()}|{platform.machine()}".encode())
+    return _HERE / f"libslamtpu_native-{key.hexdigest()[:16]}.so"
+
+
+def _build(lib: Path) -> bool:
+    # build under a private name and rename: concurrent first imports
+    # (test workers) never load a half-written library
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        str(_SRC), "-o", str(_LIB), "-lpng", "-lz", "-pthread",
+        "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+        str(_SRC), "-o", str(tmp), "-lpng", "-lz", "-pthread",
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, lib)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
         return False
 
 
@@ -45,12 +62,16 @@ def _load() -> bool:
     global _lib, AVAILABLE
     if _lib is not None:
         return AVAILABLE
-    if not _LIB.exists() or _SRC.stat().st_mtime > _LIB.stat().st_mtime:
-        if not _build():
+    lib = _lib_path()
+    if not lib.exists():
+        for stale in _HERE.glob("libslamtpu_native*.so"):
+            if stale != lib:
+                stale.unlink(missing_ok=True)
+        if not _build(lib):
             AVAILABLE = False
             return False
     try:
-        _lib = ctypes.CDLL(str(_LIB))
+        _lib = ctypes.CDLL(str(lib))
     except OSError:
         AVAILABLE = False
         return False

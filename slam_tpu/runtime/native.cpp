@@ -1,5 +1,5 @@
-// slam_tpu native runtime: the host-side components that surround the TPU
-// compute path.
+// slam_tpu native runtime: the host-side components that surround the
+// device compute path.
 //
 // The reference delegates its native work to OpenCV/GTSAM through Python
 // bindings (SURVEY.md §2.3); in this framework the *compute* went to
@@ -14,8 +14,8 @@
 //      [0,1] block (the reference round-trips through cv2.imread,
 //      Inputs.py:8-19).
 //   3. loader_*      — a double-buffered background prefetcher that
-//      decodes the next stereo chunk on worker threads while the TPU
-//      processes the current one.
+//      decodes the next stereo chunk on worker threads while the
+//      device processes the current one.
 //
 // Built as a plain shared library; bound via ctypes (no pybind11 in the
 // image).

@@ -6,7 +6,7 @@ The reference's observability is ad-hoc ``timeit`` spans and tqdm bars
   * :class:`StageTimer` — structured wall-clock spans with a JSON dump
     (consumed by the pipeline driver's ``timings`` report);
   * :func:`device_trace` — context manager around ``jax.profiler`` traces
-    (view with TensorBoard / xprof) for kernel-level TPU profiling;
+    (view with TensorBoard / xprof) for kernel-level device profiling;
   * :func:`log` — stdlib-logging-backed structured event logging,
     replacing the reference's bare prints.
 """
@@ -64,7 +64,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def device_trace(out_dir: str | Path, enabled: bool = True):
-    """jax.profiler trace scope (kernel-level TPU timeline)."""
+    """jax.profiler trace scope (kernel-level device timeline)."""
     if not enabled:
         yield
         return

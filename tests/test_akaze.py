@@ -59,7 +59,7 @@ def test_akaze_batch_matches_single_image_contract():
         textured_image(jax.random.PRNGKey(5), h=128, w=256),
     ])
     batch = akaze.detect_and_describe_akaze_batch(
-        imgs, max_kp=256, octaves=2, use_pallas=False
+        imgs, max_kp=256, octaves=2
     )
     single = jax.vmap(
         lambda im: akaze.detect_and_describe_akaze(im, max_kp=256, octaves=2)

@@ -2,8 +2,8 @@
 
 Parity target: ``cv2.BFMatcher(cv2.NORM_HAMMING, crossCheck=True)`` over
 binary descriptors (reference final_project/algorithms/matching.py:19-24,
-the headline AKAZE configuration). The TPU design stores each bit as a ±1
-bf16 lane so XOR-popcount becomes an exact MXU dot product; these tests pin
+the headline AKAZE configuration). The design stores each bit as a ±1
+bf16 lane so XOR-popcount becomes an exact matmul dot product; these tests pin
 that exactness against a packed-bit host popcount and pin the mutual-match
 decisions against a brute-force crossCheck matcher.
 """

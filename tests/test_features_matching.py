@@ -43,28 +43,25 @@ def test_descriptors_unit_norm():
     assert (norms[~valid] < 1e-6).all()
 
 
-def test_shifted_gather_bit_equals_fancy_gather():
-    """The 4-index shifted-stack descriptor cell gather must reproduce the
-    16-index per-cell gather exactly for EVERY keypoint position (the
-    edge-replicated shift stack encodes the same per-cell clipping)."""
+def test_cell_gather_clips_each_cell_like_numpy():
+    """The 16-index descriptor cell gather samples each cell center at
+    its own rounded, independently clipped position, for EVERY keypoint
+    position (borders included, where per-cell clipping fires)."""
     img = textured_image(jax.random.PRNGKey(7), h=120, w=160)
-    maps = features.orientation_cell_maps(img)
-    shifted = features.build_shifted_cell_maps(maps)
-    kx, ky, kf = jax.random.split(jax.random.PRNGKey(8), 3)
-    # subpixel positions over the whole image INCLUDING the borders, where
-    # per-cell clipping actually fires
+    maps = np.asarray(features.orientation_cell_maps(img))
+    kx, ky = jax.random.split(jax.random.PRNGKey(8))
     xs = jax.random.uniform(kx, (256,), minval=0.0, maxval=159.0)
     ys = jax.random.uniform(ky, (256,), minval=0.0, maxval=119.0)
-    xy = jnp.stack([xs, ys], axis=-1)
-    a = np.asarray(features._gather_cells_shifted(shifted, xy))
-    f = np.asarray(features._gather_cells_fancy(maps, xy))
-    assert np.array_equal(a, f)
-
-    # full describe must be identical through either routing
-    valid = jax.random.bernoulli(kf, 0.9, (256,))
-    da = np.asarray(features.describe(img, xy, valid, shifted_maps=shifted))
-    df = np.asarray(features.describe(img, xy, valid))
-    assert np.array_equal(da, df)
+    xy = np.asarray(jnp.stack([xs, ys], axis=-1))
+    got = np.asarray(features._gather_cells(jnp.asarray(maps), jnp.asarray(xy)))
+    offs = (np.arange(4) - 1.5) * features.CELL
+    for k in range(0, 256, 17):
+        for iy in range(4):
+            for ix in range(4):
+                px = int(np.clip(np.round(xy[k, 0] + offs[ix]), 0, 159))
+                py = int(np.clip(np.round(xy[k, 1] + offs[iy]), 0, 119))
+                np.testing.assert_array_equal(got[k, iy * 4 + ix],
+                                              maps[:, py, px])
 
 
 def test_self_match_is_identity():
@@ -176,11 +173,11 @@ def test_batched_detect_describe():
 def test_multiscale_batch_matches_vmapped():
     """detect_and_describe_multiscale_batch (jnp path) must reproduce the
     per-image multiscale pipeline exactly — it only restructures the
-    per-octave loop so the fused Pallas kernels can batch each level."""
+    per-octave loop to batch each level."""
     rng = np.random.default_rng(1)
     imgs = jnp.asarray(rng.random((2, 128, 256)).astype(np.float32))
     a = features.detect_and_describe_multiscale_batch(
-        imgs, max_kp=512, num_levels=2, use_pallas=False)
+        imgs, max_kp=512, num_levels=2)
     b = jax.vmap(lambda im: features.detect_and_describe_multiscale(
         im, max_kp=512, num_levels=2))(imgs)
     for k in ("xy", "desc", "valid", "resp", "scale"):

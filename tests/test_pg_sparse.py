@@ -1,7 +1,7 @@
 """Sparse (selected-inverse) pose-graph path vs the dense reference.
 
 ops/pg_sparse.py is the scalable replacement for the dense (6N)^2
-covariance inverse (VERDICT r3 item 5): block-Cholesky + Takahashi
+covariance inverse: block-Cholesky + Takahashi
 selected inverse on the odometry chain, Woodbury for loop edges. The
 semantics it must reproduce are ``gtsam.Marginals`` /
 ``jointMarginalInformation`` (reference
@@ -174,7 +174,7 @@ def test_sparse_rejects_non_chain_layout():
 
 @pytest.mark.slow
 def test_sparse_at_2560_keyframes():
-    """VERDICT r3 item 5: >= 2500 keyframes, where the dense (6N)^2
+    """>= 2500 keyframes, where the dense (6N)^2
     covariance would be 6*2560=15360 squared f32 = 0.94 GB and the solve
     O(N^3). The sparse path is O(N) + O(P) per gated pair."""
     N = 2560

@@ -286,7 +286,7 @@ def test_marginal_logdets_match_host_slogdet():
 
 def test_reference_scale_magnitudes_no_random_walk():
     """Pre-LC optimize must not degrade an already-consistent chain at
-    reference-scale MAGNITUDES (VERDICT r4 weak #2: at ~150 m translations
+    reference-scale MAGNITUDES (at ~150 m translations
     whitened by ~1e4 sqrt-information, the f32 LM cost noise floor used to
     be read as improvement and nodes random-walked ~0.5 m; scale run r4:
     bundles ATE 0.564 -> pose graph 0.766 m)."""

@@ -1,6 +1,6 @@
 """TP mega-bundle overflow routing through the production pipeline.
 
-VERDICT r4 missing #3 / next #5: windows that overflow the static
+Windows that overflow the static
 (max_landmarks, max_obs) capacity must route to the landmark-sharded TP
 solver when a mesh is present (models/bundle.py reoptimize_overflow_tp),
 re-solved at FULL observation count — the no-drop behavior the reference
